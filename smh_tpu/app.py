@@ -38,7 +38,6 @@ from .squadex.capture import (
     load_frame_bgra,
 )
 from .vision.pipeline import VisionLoop, VisionResults, VisionState
-from .web.server import WebServer
 from .web import protocol
 
 log = logging.getLogger(__name__)
@@ -62,14 +61,18 @@ class App:
         ripper_exe: Optional[str] = None,
         cache_dir: str = "heightmaps",
         worker: bool = False,
+        worker_warmup: bool = False,
     ) -> None:
         """worker=True runs the vision pipeline in a PERSISTENT WORKER
         PROCESS (smh_tpu/worker.py) instead of an in-process thread: frames
         cross a shared-memory ring, detections come back over a unix
         socket, and the worker recycles itself past its upload budget so
-        the relay client's host retention stays bounded (DESIGN.md §3).
-        The in-process knobs that live inside the pipeline (debug views,
-        backend hot-swap) are owned by the worker in this mode."""
+        the host memory a device client keeps per uploaded byte stays
+        bounded. The in-process knobs that live inside the pipeline (debug
+        views, backend hot-swap) are owned by the worker in this mode, and
+        this process stays off JAX: one process per device.
+        worker_warmup=True makes the worker compile its resolution's bucket
+        ladder before it reports ready."""
         self.settings = settings or Settings()
         # Log observability surface (reference: in-app log window fed by a
         # channel with repeat-collapse + auto-open-on-error,
@@ -94,6 +97,7 @@ class App:
         self.cache_dir = cache_dir
         self.capture = CaptureThread(source)
         self.worker_mode = worker
+        self._worker_warmup = worker_warmup
         self._worker_client = None
         self._worker_thread: Optional[threading.Thread] = None
         self._worker_map = None  # latest ui map pushed through the shm slot
@@ -101,7 +105,11 @@ class App:
             self.loop = None
         else:
             self.loop = VisionLoop(self.state, self.capture, self._on_update, pipelined=pipelined)
-        self.web = WebServer(port=port) if serve else None
+        self.web = None
+        if serve:
+            from .web.server import WebServer
+
+            self.web = WebServer(port=port)
         self.custom_markers: list[tuple[tuple[float, float], tuple[float, float]]] = []
         self._lock = threading.Lock()
         self._shutdown = threading.Event()
@@ -502,7 +510,9 @@ class App:
                     if wc is not None:
                         wc.close()
                     log.info("starting pipeline worker for %dx%d", w, h)
-                    wc = WorkerClient(w, h, on_result, on_map=on_map)
+                    wc = WorkerClient(
+                        w, h, on_result, on_map=on_map, warmup=self._worker_warmup
+                    )
                     self._worker_client = wc
                     wc.set_maps(self.web is not None)
                 accepted = wc.submit(frame.image, frame.dpi or 96)
@@ -570,17 +580,7 @@ def _build_source(args):
 
 
 def main(argv=None) -> int:
-    # Persistent XLA compile cache: the fused pass re-compiles per resolution
-    # bucket, and a cold compile through a remote compile service can take
-    # minutes — the cache turns later launches into second-scale starts.
-    import os
-
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.expanduser("~/.jax_cache"))
-    from smh_tpu import jax_cache
-
-    jax_cache.enable()  # the env var alone is dead on jax 0.9.0
-
-    ap = argparse.ArgumentParser(description="Squad Mortar Helper (TPU-native)")
+    ap = argparse.ArgumentParser(description="Squad Mortar Helper (JAX device vision)")
     src = ap.add_mutually_exclusive_group()
     src.add_argument("--image", help="use a single screenshot as the frame source")
     src.add_argument("--dir", help="cycle screenshots from a directory")
@@ -603,7 +603,7 @@ def main(argv=None) -> int:
                     help="run the vision pipeline in a persistent worker process "
                          "(shm frame ring + unix socket results); the worker "
                          "recycles itself past SMH_WORKER_RECYCLE_MB of uploads "
-                         "so host memory stays bounded on the tunnel client")
+                         "so host memory stays bounded")
     ap.add_argument("--debug-web", action="store_true",
                     help="broadcast debug telemetry to web clients (event id 100): "
                          "fps, per-stage timeshares, OCR boxes, scale overlays")
@@ -614,7 +614,8 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--warmup", action="store_true",
         help="pre-compile the common resolution buckets before serving "
-             "(pairs with JAX_COMPILATION_CACHE_DIR for instant later starts)",
+             "(with --worker: the worker compiles its resolution's buckets); "
+             "the persistent compile cache makes later starts fast",
     )
     ap.add_argument("--settings", default="settings.json")
     ap.add_argument("--dumplogs", action="store_true", help="also log to smh.log")
@@ -681,7 +682,7 @@ def main(argv=None) -> int:
         # Session-only override: a CLI flag must not rewrite settings.json.
         settings.set("hardware_acceleration", args.backend == "tpu", save=False)
 
-    if args.warmup and settings.hardware_acceleration():
+    if args.warmup and settings.hardware_acceleration() and not args.worker:
         from .ops.warmup import warmup
 
         warmup()
@@ -691,7 +692,7 @@ def main(argv=None) -> int:
         serve=not args.no_web, pipelined=args.pipelined, debug_web=args.debug_web,
         scales_async=not args.sync_scales,
         paks=args.paks, aes=args.aes, ripper_exe=args.ripper, cache_dir=args.cache_dir,
-        worker=args.worker,
+        worker=args.worker, worker_warmup=args.warmup,
     )
 
     if args.heightmap:

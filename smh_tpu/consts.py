@@ -1,7 +1,7 @@
 """Typed constants loaded from consts.toml, plus screen-relative ROIs.
 
 One TOML is the single source of truth for every consumer: Python (numpy
-oracle + TPU kernels), the native C++ module (via the generated header from
+oracle + device kernels), the native C++ module (via the generated header from
 :func:`generate_c_header`), and the tests.
 
 Reference parity notes (cited so the judge can check):

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's util geometry types
 (/root/reference/util/src/geometry.rs:5-187). Plain dataclasses on the host
-side; the TPU compute path never boxes these (lines travel as arrays).
+side; the device compute path never boxes these (lines travel as arrays).
 """
 
 from __future__ import annotations

@@ -1,51 +1,38 @@
-"""Persistent XLA compilation-cache activation that actually takes effect.
+"""Persistent XLA compilation cache.
 
-Every entry point in this repo (bench, app, worker, tools, tests) used to
-set ``JAX_COMPILATION_CACHE_DIR`` in ``os.environ`` and assume the cache was
-on. On the pinned jax 0.9.0 that env var is silently ignored —
-``jax.config.jax_compilation_cache_dir`` stays ``None`` and every process
-recompiles every bucket (measured: a 27 s test spends 20.7 s in 4 pjit
-compiles that a working cache loads in ~0.1 s each). The only reliable
-activation is ``jax.config.update`` after the ``jax`` import, which this
-module centralizes.
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module leaves the directory alone. Where it is unset, the cache lives in a
+fixed directory of the checkout, ``<checkout>/.jax_cache`` (listed in
+``.gitignore``): the path is part of the cache's key, so it must not move
+between runs.
 
-Call :func:`enable` once, any time after ``import jax`` is possible and
-before the first ``jit`` compilation. Idempotent; failures are non-fatal
-(the cache is an optimization, never a correctness dependency).
+:func:`enable` runs when ``smh_tpu.ops.pipeline`` is imported, before the
+first jit compilation of the framework. Idempotent.
 """
 
 from __future__ import annotations
 
 import os
+import pathlib
+
+DEFAULT_DIR = pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"
 
 
-def enable(path: str | None = None, min_compile_secs: float = 0.3) -> str | None:
-    """Turn on the persistent compilation cache at ``path``.
+def enable(min_compile_secs: float = 0.3) -> str:
+    """Turn on the persistent compilation cache; returns its directory.
 
-    ``path`` defaults to ``$JAX_COMPILATION_CACHE_DIR`` (honoring the
-    convention the callers already use) and then ``~/.jax_cache``.
-    ``min_compile_secs`` is deliberately below jax's 1.0 default: the suite
-    and the warmup ladder are dominated by many 0.3-6 s bucket compiles,
-    not a few giant ones. Returns the directory on success, None if the
-    cache could not be enabled.
+    ``min_compile_secs`` is below jax's 1.0 default: the warmup ladder and
+    the suite are dominated by many sub-second to few-second bucket
+    compiles, not a few giant ones.
     """
-    path = path or os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.expanduser(
-        "~/.jax_cache"
-    )
-    try:
-        import jax
+    import jax
 
-        already = jax.config.jax_compilation_cache_dir
-        if already:  # first caller wins (conftest picks a test-only dir)
-            return already
-        os.makedirs(path, exist_ok=True)
+    path = jax.config.jax_compilation_cache_dir
+    if not path and not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        path = str(DEFAULT_DIR)
         jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update(
-            "jax_persistent_cache_min_compile_time_secs", float(min_compile_secs)
-        )
-        # Entry size floor 0: the hostpack programs are small but expensive
-        # to rebuild through a remote compile service.
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        return path
-    except Exception:  # pragma: no cover - cache is best-effort by design
-        return None
+    jax.config.update(
+        "jax_persistent_cache_min_compile_time_secs", float(min_compile_secs)
+    )
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    return path

@@ -1,8 +1,8 @@
 // Native host hot loops for smh_tpu.
 //
 // The line-segment search is scalar pointer-chasing — the one workload in
-// the pipeline that vector units (TPU or otherwise) fundamentally dislike.
-// The TPU path (smh_tpu/ops/lsd.py) batches it as dense span scans; this
+// the pipeline that vector units fundamentally dislike.
+// The device path (smh_tpu/ops/lsd.py) batches it as dense span scans; this
 // module is the host-side engine for the same computation, semantically
 // identical to the numpy oracle (smh_tpu/vision/reference.py), which in turn
 // ports vision-cpu/src/lib.rs:387-449 + vision-common/src/lsd.rs:5-107 from

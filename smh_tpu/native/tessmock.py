@@ -10,13 +10,9 @@ traineddata (reference counterpart: the embedded-traineddata init in
 
 from __future__ import annotations
 
-import logging
 import pathlib
 import subprocess
 import threading
-from typing import Optional
-
-log = logging.getLogger(__name__)
 
 _HERE = pathlib.Path(__file__).resolve().parent
 _SRC = _HERE / "smhtess.cpp"
@@ -25,22 +21,19 @@ _SO = _HERE / "libsmhtess.so"
 _lock = threading.Lock()
 
 
-def lib_path() -> Optional[pathlib.Path]:
-    """Compile (if stale) and return the smhtess library path; None on failure."""
+def lib_path() -> pathlib.Path:
+    """Compile smhtess.cpp (if the library is missing or older than the
+    source) and return the library path. Raises RuntimeError when the build
+    fails: a stale library from another source revision is never used."""
     with _lock:
         if _SO.exists() and _SO.stat().st_mtime >= _SRC.stat().st_mtime:
             return _SO
         cmd = ["g++", "-O2", "-shared", "-fPIC", "-o", str(_SO), str(_SRC)]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-            return _SO
         except (subprocess.CalledProcessError, subprocess.TimeoutExpired, FileNotFoundError) as e:
-            # Git does not preserve mtimes: a fresh clone can leave the
-            # source newer than a perfectly good committed .so. On hosts
-            # without a toolchain, prefer the stale-but-present library to
-            # no library at all.
-            if _SO.exists():
-                log.warning("smhtess rebuild failed (%s); using existing %s", e, _SO)
-                return _SO
-            log.warning("smhtess build failed: %s", e)
-            return None
+            detail = getattr(e, "stderr", b"") or b""
+            raise RuntimeError(
+                f"smhtess build failed: {e}: {detail.decode(errors='replace')[-600:]}"
+            ) from e
+        return _SO

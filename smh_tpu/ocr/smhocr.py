@@ -8,8 +8,8 @@ Tesseract's traineddata is an external asset. This engine:
   1. thresholds the OCR-preprocessed image (dark text on a white field),
   2. finds connected components (glyphs) and groups them into words by
      baseline overlap + horizontal proximity,
-  3. classifies each glyph against rendered DejaVu Sans templates
-     (digits + 'm') by normalized template distance.
+  3. classifies each glyph against DejaVu Sans templates (digits + 'm',
+     committed in ocr/glyphs.npz) by normalized correlation.
 
 It is the default fallback when no tesseract traineddata is available, and
 it validates on the reference's real screenshots (see tests): the ratios
@@ -19,19 +19,12 @@ possible when the digits are read correctly.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import numpy as np
 
 from .engine import OCR_BINARY_THRESHOLD, OcrResult
-
-GLYPH_W, GLYPH_H = 12, 16
-CHARS = "0123456789m"
-_FONTS = (
-    "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
-    "/usr/share/fonts/truetype/dejavu/DejaVuSans-Bold.ttf",
-)
+from .glyphs import normalize, templates
 
 TEXT_THRESHOLD = OCR_BINARY_THRESHOLD  # background == 255, text <= ~125
 MIN_GLYPH_PX = 8
@@ -40,47 +33,10 @@ MAX_GLYPH_H = 48
 MIN_CONFIDENCE = 0.55
 
 
-@functools.lru_cache(maxsize=1)
-def _templates() -> list[tuple[str, np.ndarray]]:
-    from PIL import Image, ImageDraw, ImageFont
-
-    out = []
-    for path in _FONTS:
-        try:
-            font = ImageFont.truetype(path, 32)
-        except OSError:
-            continue
-        for ch in CHARS:
-            img = Image.new("L", (64, 64), 0)
-            d = ImageDraw.Draw(img)
-            d.text((8, 8), ch, fill=255, font=font)
-            arr = np.asarray(img)
-            ys, xs = np.nonzero(arr > 64)
-            if ys.size == 0:
-                continue
-            crop = arr[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]
-            t = _normalize(crop.astype(np.float32) / 255.0)
-            out.append((ch, t))
-    return out
-
-
-def _normalize(glyph: np.ndarray) -> np.ndarray:
-    """Resize a cropped glyph to the canonical GLYPH_W x GLYPH_H box."""
-    from PIL import Image
-
-    img = Image.fromarray((np.clip(glyph, 0, 1) * 255).astype(np.uint8))
-    img = img.resize((GLYPH_W, GLYPH_H), Image.BILINEAR)
-    arr = np.asarray(img).astype(np.float32) / 255.0
-    # zero-mean/unit-norm so correlation is brightness invariant
-    arr = arr - arr.mean()
-    n = np.linalg.norm(arr)
-    return arr / n if n > 1e-6 else arr
-
-
 def _classify(glyph_mask: np.ndarray) -> tuple[str, float]:
-    t = _normalize(glyph_mask.astype(np.float32))
+    t = normalize(glyph_mask.astype(np.float32))
     best_ch, best_score = "?", -1.0
-    for ch, tpl in _templates():
+    for ch, tpl in templates():
         score = float((t * tpl).sum())
         if score > best_score:
             best_ch, best_score = ch, score
@@ -97,7 +53,7 @@ class SmhOcrEngine:
     # Results derive from the pixels: row-band transport is exact for it.
     image_derived = True
     # Same digits+'m' template semantics as the on-device reader
-    # (ops/scales_device): the TPU backend replaces this engine wholesale
+    # (ops/scales_device): the device backend replaces this engine wholesale
     # with ~1.2 KB of device-read records, falling back here on capacity
     # overflow (validated corpus-wide in tests/test_scales_device.py).
     device_ok = True

@@ -27,18 +27,16 @@ import pathlib
 import struct
 
 from .engine import OCR_BINARY_THRESHOLD
-from .smhocr import GLYPH_H, GLYPH_W, _templates
+from .glyphs import GLYPH_H, GLYPH_W, templates
 
 MAGIC = b"SMHT"
 VERSION = 1
 
 
 def write_traineddata(path: str | pathlib.Path) -> pathlib.Path:
-    """Render the glyph templates and write `<path>` (e.g. eng.traineddata)."""
+    """Write the glyph templates to `<path>` (e.g. eng.traineddata)."""
     path = pathlib.Path(path)
-    tpls = _templates()
-    if not tpls:
-        raise RuntimeError("no fonts available to render glyph templates")
+    tpls = templates()
     out = bytearray()
     out += MAGIC
     out += struct.pack("<IIIII", VERSION, GLYPH_W, GLYPH_H, OCR_BINARY_THRESHOLD, len(tpls))

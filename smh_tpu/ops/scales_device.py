@@ -4,19 +4,19 @@ The reference reads map scales on the host: Tesseract over the OCR image,
 then a pixel walk for the |----| bar (src/vision/mod.rs:160-193,
 src/vision/mpx_ratio.rs:3-134). Round 1/2 of this port moved the *transport*
 of those images to adaptive bands; this module removes the transport
-entirely: the TPU segments the text mask into glyphs, classifies each glyph
-against digit/'m' templates with ONE small matmul (MXU), groups glyphs into
+entirely: the device segments the text mask into glyphs, classifies each
+glyph against digit/'m' templates with ONE small matmul, groups glyphs into
 words, and speculatively runs the scale-bar scan for every word — all inside
 the fused dispatch. The hostpack then carries ~1.2 KB of fixed-shape records
 instead of image rows, and the host does no OCR at all.
 
-Everything is static-shape: runs are extracted with sort-based compaction
+Everything is static-shape: runs are extracted with sort-free compaction
 into fixed slots (MAX_BANDS text-row bands x MAX_GPB glyph column-runs),
 glyph windows are dynamic-slices of a padded plane, and the canonical 12x16
-resample is a bilinear map_coordinates gather whose numpy twin generates the
-templates — glyphs and templates see the *same* resampling operator, so the
-correlation scores are comparable (the host engine smhocr.py uses PIL's
-resize for both sides the same way).
+resample is a bilinear map_coordinates gather whose numpy twin
+(ocr/glyphs.resample) generates the templates — glyphs and templates see the
+*same* resampling operator, so the correlation scores are comparable (the
+host engine smhocr.py uses the numpy twin for both sides the same way).
 
 Capacity overflows (more bands/glyphs/words than slots, text taller than the
 glyph window) set flags in the record header; the host falls back to the
@@ -34,16 +34,17 @@ import jax
 import jax.numpy as jnp
 
 from .. import consts as C
+from ..ocr import glyphs
 from ..ocr.engine import OCR_BINARY_THRESHOLD
 
 I16 = jnp.int16
 I32 = jnp.int32
 F32 = jnp.float32
 
-# Canonical glyph box (matches ocr/smhocr.py so the two engines share
-# template geometry and confidence scales).
-GLYPH_W, GLYPH_H = 12, 16
-CHARS = "0123456789m"
+# Canonical glyph box (shared with ocr/smhocr.py through ocr/glyphs.py, so
+# the two engines share template geometry and confidence scales).
+GLYPH_W, GLYPH_H = glyphs.GLYPH_W, glyphs.GLYPH_H
+CHARS = glyphs.CHARS
 
 # Static record capacities. A real scales overlay is <=3 short "<N>m" words;
 # the slack absorbs stray whiteish UI text without tripping the fallback.
@@ -80,59 +81,13 @@ REC_I16 = HDR_I16 + N_WORDS * WORD_I16
 REC_BYTES = REC_I16 * 2
 
 
-def _resample_np(window: np.ndarray) -> np.ndarray:
-    """Numpy twin of the device glyph resample: bilinear sample of `window`
-    (float [h, w]) onto the canonical GLYPH_H x GLYPH_W grid with edge
-    clamping. Templates are built with THIS function so template and glyph
-    features come from the same operator."""
-    from scipy import ndimage as ndi
-
-    h, w = window.shape
-    vi = (np.arange(GLYPH_H, dtype=np.float64) + 0.5) * (h / GLYPH_H) - 0.5
-    uj = (np.arange(GLYPH_W, dtype=np.float64) + 0.5) * (w / GLYPH_W) - 0.5
-    vv, uu = np.meshgrid(vi, uj, indexing="ij")
-    return ndi.map_coordinates(
-        window.astype(np.float64), [vv, uu], order=1, mode="nearest"
-    ).astype(np.float32)
-
-
-def _normalize_feat(arr: np.ndarray) -> np.ndarray:
-    arr = arr - arr.mean()
-    n = np.linalg.norm(arr)
-    return arr / n if n > 1e-6 else arr
-
-
 @functools.lru_cache(maxsize=1)
 def device_templates() -> np.ndarray:
     """[T, GLYPH_H*GLYPH_W] f32 normalized templates (DejaVu digits + 'm',
-    regular + bold), resampled by the numpy twin of the device operator.
-    Row t classifies as CHARS[t % len(CHARS)]."""
-    from PIL import Image, ImageDraw, ImageFont
-
-    fonts = (
-        "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
-        "/usr/share/fonts/truetype/dejavu/DejaVuSans-Bold.ttf",
-    )
-    rows = []
-    for path in fonts:
-        try:
-            font = ImageFont.truetype(path, 32)
-        except OSError:
-            continue
-        for ch in CHARS:
-            img = Image.new("L", (64, 64), 0)
-            ImageDraw.Draw(img).text((8, 8), ch, fill=255, font=font)
-            arr = np.asarray(img)
-            ys, xs = np.nonzero(arr > 64)
-            if ys.size == 0:
-                rows.append(np.zeros(GLYPH_H * GLYPH_W, np.float32))
-                continue
-            crop = arr[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]
-            canon = _resample_np(crop.astype(np.float32) / 255.0)
-            rows.append(_normalize_feat(canon).reshape(-1))
-    if not rows:  # no fonts in the image: classification disabled
-        rows = [np.zeros(GLYPH_H * GLYPH_W, np.float32)]
-    return np.stack(rows)
+    regular + bold, from ocr/glyphs.npz), resampled by the numpy twin of
+    the device operator (ocr/glyphs.resample). Row t classifies as
+    CHARS[t % len(CHARS)]."""
+    return np.stack([t.reshape(-1) for _, t in glyphs.templates()])
 
 
 def scan_budget(brq_w: int) -> int:
@@ -146,11 +101,8 @@ def _runs(mask: jnp.ndarray, max_runs: int):
     count). Padded slots have start == n.
 
     Sort-free compaction: rank each run boundary by a prefix sum, then gather
-    boundary positions into their slots with a one-hot matmul — [max_runs, n]
-    @ [n] rides the MXU in one pass. Round 2 used two jnp.sort's per call
-    (argmax/nonzero lower poorly on this TPU); the bitonic sort network over
-    [n] i32 was ~40% of the device scales read at 4K, the matmul form is
-    O(n * max_runs) trivially-fused work."""
+    boundary positions into their slots with a one-hot masked sum over
+    [max_runs, n] — O(n * max_runs) trivially-fused work, no sort."""
     n = mask.shape[0]
     prev = jnp.concatenate([jnp.zeros((1,), bool), mask[:-1]])
     nxt = jnp.concatenate([mask[1:], jnp.zeros((1,), bool)])
@@ -184,13 +136,13 @@ def _first_true(v: jnp.ndarray) -> jnp.ndarray:
     return jnp.sum(out, dtype=I32)
 
 
-def _classify_windows(text_pad, by0s, bhs, gx0s, gws, valids, templates):
-    """vmapped glyph feature extraction + one matmul against the templates.
+def _glyph_features(text_pad, by0s, bhs, gx0s, gws, valids):
+    """vmapped glyph feature extraction.
 
     text_pad: bool [H+WIN_H, W+WIN_W] padded text mask.
     by0s/bhs: [G] band row origin / band height per glyph slot.
     gx0s/gws: [G] column-run origin / width.
-    Returns (char_idx [G], score [G], gy0 [G], gy1 [G], count [G], ok [G]).
+    Returns (feat [G, GLYPH_H*GLYPH_W], gy0 [G], gy1 [G], count [G], ok [G]).
     """
 
     def one(by0, bh, gx0, gw, valid):
@@ -210,7 +162,7 @@ def _classify_windows(text_pad, by0s, bhs, gx0s, gws, valids, templates):
             & (h <= MAX_GLYPH_H)
             & (gw <= MAX_GLYPH_H)
         )
-        # Canonical resample (device half of the _resample_np twin).
+        # Canonical resample (device half of the ocr/glyphs.resample twin).
         fh = h.astype(F32)
         fw = gw.astype(F32)
         vi = gy0.astype(F32) + (jnp.arange(GLYPH_H, dtype=F32) + 0.5) * (
@@ -227,23 +179,21 @@ def _classify_windows(text_pad, by0s, bhs, gx0s, gws, valids, templates):
         feat = jnp.where(norm > 1e-6, feat / norm, jnp.zeros_like(feat))
         return feat.reshape(-1), gy0, gy1, count, ok
 
-    feats, gy0s, gy1s, counts, oks = jax.vmap(one)(by0s, bhs, gx0s, gws, valids)
-    scores = feats @ templates.T  # [G, T] — the MXU does the classification
-    best = jnp.argmax(scores, axis=1).astype(I32)
-    best_score = jnp.max(scores, axis=1)
-    return best, best_score, gy0s, gy1s, counts, oks
+    return jax.vmap(one)(by0s, bhs, gx0s, gws, valids)
 
 
-def scales_records(
-    text: jnp.ndarray, sbool: jnp.ndarray, templates: jnp.ndarray
-) -> jnp.ndarray:
-    """The full device scales read -> i16 [REC_I16] record vector.
+def _classify(feats, templates):
+    """One matmul against the templates -> (char_idx [G], score [G])."""
+    # [G, T] correlations in full f32: they feed an argmax and the
+    # MIN_CONFIDENCE gate, which a TF32 product could flip.
+    scores = jnp.matmul(feats, templates.T, precision=jax.lax.Precision.HIGHEST)
+    return jnp.argmax(scores, axis=1).astype(I32), jnp.max(scores, axis=1)
 
-    text:  bool [H, W] OCR text mask (ocr_img < OCR_BINARY_THRESHOLD).
-    sbool: bool [H, W] scales binarize plane (True = non-black; the bar scan
-           reads black pixels, i.e. ~sbool).
-    templates: f32 [T, 192] from device_templates().
-    """
+
+def _glyph_slots(text: jnp.ndarray):
+    """Text-row bands and their glyph column-runs in fixed slots ->
+    (text_pad, flags, n_bands, band_bad [MAX_BANDS], by0s, bhs, gx0s, gws,
+    valids, bands), the per-glyph arrays [MAX_BANDS * MAX_GPB]."""
     h, w = text.shape
     text_pad = jnp.pad(text, ((0, WIN_H), (0, WIN_W)), constant_values=False)
 
@@ -252,9 +202,8 @@ def scales_records(
     flags = jnp.where(n_bands > MAX_BANDS, I32(FLAG_BAND_OVERFLOW), I32(0))
 
     # Per-band glyph column runs, vmapped over bands (an unrolled Python
-    # loop here put tens of thousands of ops in the graph and pushed the
-    # remote compile past 10 minutes per bucket; the vmapped form compiles
-    # the band body once).
+    # loop here put tens of thousands of ops in the graph; the vmapped form
+    # compiles the band body once).
     def band_info(b):
         by0 = jnp.minimum(b_starts[b], h)  # padded slot -> degenerate band
         by1 = jnp.minimum(b_ends[b], h)
@@ -279,10 +228,36 @@ def scales_records(
     gws = gw_bg.reshape(-1)
     valids = valid_bg.reshape(-1)
     bands = jnp.repeat(jnp.arange(MAX_BANDS, dtype=I32), MAX_GPB)
+    return text_pad, flags, n_bands, band_bad, by0s, bhs, gx0s, gws, valids, bands
 
-    chars, scores, gy0s, gy1s, _counts, oks = _classify_windows(
-        text_pad, by0s, bhs, gx0s, gws, valids, templates
+
+def glyph_reads(text: jnp.ndarray, templates: jnp.ndarray):
+    """Per glyph slot: (feat [G, 192], ok [G], char_idx [G], score [G]) —
+    the classification scales_records packs into its words, exposed so a
+    float64 evaluation of the same features can check the device matmul."""
+    slots = _glyph_slots(text)
+    feats, _gy0s, _gy1s, _counts, oks = _glyph_features(slots[0], *slots[4:9])
+    chars, scores = _classify(feats, templates)
+    return feats, oks, chars, scores
+
+
+def scales_records(
+    text: jnp.ndarray, sbool: jnp.ndarray, templates: jnp.ndarray
+) -> jnp.ndarray:
+    """The full device scales read -> i16 [REC_I16] record vector.
+
+    text:  bool [H, W] OCR text mask (ocr_img < OCR_BINARY_THRESHOLD).
+    sbool: bool [H, W] scales binarize plane (True = non-black; the bar scan
+           reads black pixels, i.e. ~sbool).
+    templates: f32 [T, 192] from device_templates().
+    """
+    h, w = text.shape
+    (text_pad, flags, n_bands, band_bad, by0s, bhs, gx0s, gws, valids,
+     bands) = _glyph_slots(text)
+    feats, gy0s, gy1s, _counts, oks = _glyph_features(
+        text_pad, by0s, bhs, gx0s, gws, valids
     )
+    chars, scores = _classify(feats, templates)
     ay0 = by0s + gy0s  # absolute glyph bbox
     ay1 = by0s + gy1s
     ax0 = gx0s

@@ -2,10 +2,9 @@
 
 The reference vendors pre-built PTX for six compute capabilities so first
 launch never pays nvcc (vision-gpu/build.rs:92-158, cuda.rs:60-66). The XLA
-equivalent is the persistent compilation cache (JAX_COMPILATION_CACHE_DIR)
-plus this warmup: compile every bucket a deployment will use, up front,
-instead of stuttering on the first frame of each resolution (first compile
-through a remote compile service can take minutes).
+equivalent is the persistent compilation cache (smh_tpu/jax_cache.py) plus
+this warmup: compile every bucket a deployment will use, up front, instead
+of stuttering on the first frame of each resolution.
 
 Buckets per resolution: the fused pass per LSD window rung (the backend's
 adaptive ladder re-jits when the window grows/shrinks), the quiet-mask-off

@@ -1,7 +1,7 @@
 """Mesh-sharded batch pipeline: the multi-chip story.
 
 The reference is strictly single-GPU (SURVEY.md section 2: no NCCL/MPI — the
-only "distributed" channel is a WebSocket). The TPU-native extension that
+only "distributed" channel is a WebSocket). The accelerator extension that
 actually makes sense for this workload is throughput scaling: a *batch of
 frames* (multiple game clients / a capture backlog / offline video analysis)
 laid out over a 2D mesh:

@@ -2,7 +2,7 @@
 
 Counterpart of /root/reference/src/settings.rs:30-142 (same keys, same
 save-on-set behaviour; `paused` is deliberately not persisted, settings.rs:5).
-`hardware_acceleration` selects the TPU backend over the numpy reference,
+`hardware_acceleration` selects the device backend over the numpy reference,
 mirroring the reference's CPU/GPU toggle.
 """
 

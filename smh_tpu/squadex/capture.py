@@ -1,7 +1,7 @@
 """Frame sources + the capture thread with its one-deep frame mailbox.
 
 The reference captures the game window with win32 PrintWindow/PlgBlt
-(src/squadex/capture/windows.rs) — OS capture is out of scope on a TPU host,
+(src/squadex/capture/windows.rs) — OS window capture is out of scope here,
 so the framework exposes a FrameSource seam with file/directory/synthetic
 sources (the reference's own test path: Fake Inputs, src/ui/debug.rs:46-82).
 
@@ -371,10 +371,9 @@ class CaptureThread:
     def _frames_equal(self, a: np.ndarray, b: Optional[np.ndarray]) -> bool:
         """Duplicate-frame test, replacing the reference's whole-frame crc32
         (src/capture.rs:44-47). A crc reads the full 33 MB 4K frame every
-        grab (~12 ms on this 1-core host) even when the frame CHANGED — and
-        changing frames are exactly when the capture thread competes with
-        the vision thread for the core. The block compare exits on the
-        first differing MiB, so changing frames cost ~0.1-0.5 ms and only
+        grab even when the frame CHANGED — and changing frames are exactly
+        when the capture thread competes with the vision thread for the
+        CPU. The block compare exits on the first differing MiB, so only
         static frames (vision idle anyway) pay the full read. Sources must
         not mutate a returned frame buffer afterwards (all of ours allocate
         fresh or return stable preloaded arrays, so identity => equal); the

@@ -42,9 +42,10 @@ def make_frame(
     """Build a BGRA u8 frame.
 
     marker_lines are given in *map-ROI* coordinates; scale_bars and
-    scale_texts in *BRQ* coordinates. scale_texts renders real glyphs
-    (DejaVu Sans, bright monochrome) that survive the OCR preprocess and are
-    readable by the self-contained smhocr engine — end-to-end scales-branch
+    scale_texts in *BRQ* coordinates. scale_texts draws real glyphs
+    (DejaVu Sans at 20 px from ocr/glyphs.npz, bright monochrome) that
+    survive the OCR preprocess and are readable by the self-contained smhocr
+    engine — end-to-end scales-branch
     tests/benches without canned engine results. The background is a
     non-marker, non-monochrome color so it neither triggers the classifier
     nor the OCR keep-mask.
@@ -87,36 +88,14 @@ def make_frame(
             brq_view[y : y + 4, x + width, :3] = 0
 
     if scale_texts:
-        from PIL import Image, ImageDraw, ImageFont
+        from .ocr import glyphs
 
         brq_view = frame[g.brq_y : g.brq_y + g.brq_h, g.brq_x : g.brq_x + g.brq_w]
-        font = None
-        for path in (
-            "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
-            "/usr/share/fonts/truetype/dejavu/DejaVuSans-Bold.ttf",
-        ):
-            try:
-                # 20 px reads at ~95% confidence with smhocr; below ~18 px the
-                # thresholded glyph shapes drift too far from the templates.
-                font = ImageFont.truetype(path, 20)
-                break
-            except OSError:
-                continue
-        if font is None:
-            # PIL's default bitmap font renders ~10 px glyphs the smhocr
-            # templates cannot match — failing silently would make frames
-            # textless and send callers debugging the wrong layer.
-            raise RuntimeError("scale_texts needs DejaVu Sans installed")
         for text, (tx, ty) in scale_texts:
-            img = Image.new("L", (20 * len(text) + 8, 30), 0)
-            d = ImageDraw.Draw(img)
-            d.text((2, 2), text, fill=255, font=font)
-            glyph = np.asarray(img)
-            ys, xs = np.nonzero(glyph > 128)
-            for yy, xx in zip(ys, xs):
-                py, px = ty + yy, tx + xx
-                if 0 <= py < brq_view.shape[0] and 0 <= px < brq_view.shape[1]:
-                    brq_view[py, px, :3] = 236  # bright monochrome: OCR keeps it
+            ys, xs = np.nonzero(glyphs.text_mask(text))
+            py, px = ty + ys, tx + xs
+            keep = (py >= 0) & (py < brq_view.shape[0]) & (px >= 0) & (px < brq_view.shape[1])
+            brq_view[py[keep], px[keep], :3] = 236  # bright monochrome: OCR keeps it
 
     return frame
 
@@ -193,31 +172,6 @@ def upscale_frame(frame: np.ndarray, w: int, h: int) -> np.ndarray:
         ys = (np.arange(h) * frame.shape[0]) // h
         xs = (np.arange(w) * frame.shape[1]) // w
         return frame[ys][:, xs]
-
-
-def render_text_mask(text: str, height: int = 20) -> np.ndarray:
-    """Tightly-cropped u8 0/255 glyph mask of `text` (DejaVu Sans) — for
-    tests that need raw glyph pixels outside a full frame (e.g. feeding a
-    real OCR engine directly)."""
-    from PIL import Image, ImageDraw, ImageFont
-
-    font = None
-    for path in (
-        "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
-        "/usr/share/fonts/truetype/dejavu/DejaVuSans-Bold.ttf",
-    ):
-        try:
-            font = ImageFont.truetype(path, height)
-            break
-        except OSError:
-            continue
-    if font is None:
-        raise RuntimeError("render_text_mask needs DejaVu Sans installed")
-    img = Image.new("L", (height * len(text) + 8, height + 12), 0)
-    ImageDraw.Draw(img).text((2, 2), text, fill=255, font=font)
-    mask = (np.asarray(img) > 128).astype(np.uint8) * np.uint8(255)
-    ys, xs = np.nonzero(mask)
-    return mask[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]
 
 
 def make_ocr_text_patch(

@@ -1,1 +1,1 @@
-"""Vision subsystem: backends (numpy oracle + TPU), pipeline driver, LSD."""
+"""Vision subsystem: backends (numpy oracle + device), pipeline driver, LSD."""

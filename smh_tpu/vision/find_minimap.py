@@ -98,7 +98,7 @@ def find_minimap_quiet(quiet: np.ndarray) -> Optional[Rect]:
     """Fast path over a precomputed low-edginess boolean map.
 
     `quiet[y, x]` must equal `get_edginess(view, x, y) <= 0.01` (integer-exact
-    on both the TPU fused pass and the host; see ops/pipeline._edgy_quiet).
+    on both the device fused pass and the host; see ops/pipeline._edgy_quiet).
     The walk logic is the exact port of find_minimap.rs:48-146, with the
     perpendicular straight-line checks vectorized over numpy slices.
     """

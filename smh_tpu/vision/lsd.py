@@ -2,7 +2,7 @@
 
 The scan is inherently sequential (each accepted line suppresses later seed
 pixels), so it stays on the host; the backend supplies `find_longest_line`
-(numpy oracle, native C++, or batched TPU ray-march).
+(numpy oracle, native C++, or batched device ray-march).
 
 Parity citations:
   * seed scan + suppression + acceptance: /root/reference/vision-common/src/lsd.rs:60-107

@@ -7,8 +7,8 @@ Counterparts:
 
 Stage structure mirrors the reference: load -> crop (red gate) -> minimap ||
 (markers-branch || scales-branch) -> debug view, with per-stage timeshares.
-The markers/scales branches run concurrently (the TPU dispatch and the host
-Tesseract call overlap, like the reference's rayon join of the CUDA branch
+The markers/scales branches run concurrently (the device dispatch and the
+host Tesseract call overlap, like the reference's rayon join of the CUDA branch
 and the OCR branch).
 """
 
@@ -79,36 +79,25 @@ def make_backend(name: str):
 
 
 class BackendDelegate:
-    """Runtime backend switch with fallback (hardware.rs:14-45,62-81):
-    hardware_acceleration toggles tpu<->numpy per frame; a TPU failure logs
-    and falls back to numpy for the session."""
+    """Runtime backend switch (hardware.rs:14-45): the hardware_acceleration
+    setting selects the device backend or the numpy oracle per frame. A
+    device failure is not hidden behind the oracle: it raises to the caller
+    (VisionLoop drops that frame and logs it) and the device backend stays
+    selected."""
 
     def __init__(self, settings: Settings) -> None:
         self._settings = settings
         self._backend = None
-        self._tpu_failed = False
 
     @property
     def backend(self):
         return self._backend
 
     def current(self):
-        want = "tpu" if (self._settings.hardware_acceleration() and not self._tpu_failed) else "numpy"
+        want = "tpu" if self._settings.hardware_acceleration() else "numpy"
         if self._backend is None or self._backend.name != want:
-            try:
-                self._backend = make_backend(want)
-            except Exception:
-                if want == "tpu":
-                    log.exception("TPU backend init failed; falling back to numpy")
-                    self._tpu_failed = True
-                    self._backend = make_backend("numpy")
-                else:
-                    raise
+            self._backend = make_backend(want)
         return self._backend
-
-    def mark_tpu_failed(self) -> None:
-        self._tpu_failed = True
-        self._backend = None
 
 
 def _parse_scales(
@@ -240,15 +229,7 @@ class VisionState:
     def process(
         self, frame: Frame, debug: Optional[DebugBox] = None, submitted: Optional[dict] = None
     ) -> Optional[VisionResults]:
-        backend = self.delegate.current()
-        try:
-            return self._process(backend, frame, debug, submitted)
-        except Exception:
-            if backend.name == "tpu":
-                log.exception("TPU backend failed; falling back to numpy")
-                self.delegate.mark_tpu_failed()
-                return self._process(self.delegate.current(), frame, debug, None)
-            raise
+        return self._process(self.delegate.current(), frame, debug, submitted)
 
     def _process(
         self,
@@ -331,7 +312,7 @@ class VisionState:
                     return self._scales_cache[1]
 
             # Device-read scales: the dispatch already classified the glyphs
-            # and scanned the bars on the TPU — no image fetch, no host OCR.
+            # and scanned the bars on the device — no image fetch, no host OCR.
             # (None return = capacity overflow with nothing trusted: take the
             # image path below for this frame.)
             dev_fn = getattr(backend, "device_scales", None)
@@ -517,14 +498,13 @@ class VisionLoop:
         stages of frames N-1..N-depth+1 (the BASELINE "double-buffered
         streaming capture" configuration, deepened).
 
-        depth sizes the window against the relay's fetch completion latency:
-        the hostpack lands ~35-45 ms after dispatch (background transfer,
-        docs/DESIGN.md §3) while the per-frame host half is ~17 ms at 4K, so
-        depth 3 hides the fetch entirely (throughput ≈ host CPU) where
-        depth 2 pays ~half of it. At the production 15 FPS cap the 66 ms
-        frame interval exceeds the fetch latency, so every pending frame
-        drains immediately and depth adds NO result latency; it only matters
-        when the loop runs uncapped (benching, offline).
+        depth sizes the window against the hostpack fetch's completion
+        latency: with the fetch landing in the background after dispatch,
+        `depth` frames in flight let the host stages of earlier frames cover
+        it. At the production 15 FPS cap the 66 ms frame interval normally
+        exceeds the fetch latency, so every pending frame drains immediately
+        and depth adds no result latency; it matters when the loop runs
+        uncapped (benching, offline).
 
         threaded_submit runs the submit half (capture poll + pack + diff +
         dispatch) on its own thread, overlapping it with the consume half's
@@ -584,7 +564,7 @@ class VisionLoop:
         `depth` (depth-1 queued + 1 being consumed).
 
         Returns None on shutdown. If submit() ever yields no job (numpy
-        backend, or a TPU submit failure that already mutated live state),
+        backend, or a device submit failure that already mutated live state),
         threading is no longer sound — consume would have to touch the live
         backend concurrently with submit — so the submitter hands the
         un-submitted frame back and the caller continues single-threaded."""

@@ -2,7 +2,7 @@
 
 Every function here is written to reproduce the reference CPU backend's
 arithmetic bit-for-bit (float32 order-of-operations, truncating casts),
-because BASELINE.md declares vision-cpu the oracle the TPU kernels must match.
+because BASELINE.md declares vision-cpu the oracle the device kernels must match.
 
 Parity citations:
   * RGB -> HSV:            /root/reference/util/src/image.rs:159-202

@@ -2,9 +2,9 @@
 
 This is the counterpart of the reference's CPU backend
 (/root/reference/vision-cpu/src/lib.rs:55-461): a straightforward, exhaustively
-exact implementation of every pipeline stage that the TPU backend is diffed
-against on the sample corpus. Slow paths are acceptable here; production runs
-the TPU backend (smh_tpu/ops) with the native host module.
+exact implementation of every pipeline stage that the device backend is
+diffed against on the sample corpus. Slow paths are acceptable here;
+production runs the device backend (smh_tpu/ops) with the native host module.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ def test_batch_matches_single():
     assert not results[1].sleeping and len(results[1].markers) == 1
     assert results[2].sleeping
 
-    # Same detections as the per-frame TPU backend.
+    # Same detections as the per-frame device backend.
     from smh_tpu.vision.tpu_backend import TpuBackend
 
     be = TpuBackend()

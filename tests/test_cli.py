@@ -107,7 +107,7 @@ def test_cli_screen_source_fails_cleanly_headless(tmp_path):
 def test_analyze_video_main_stream(tmp_path, monkeypatch, capsys):
     """Drive tools/analyze_video.py's main() end-to-end over a synthesized
     recording (in-process: the CPU test platform must be inherited — a
-    subprocess would initialize the real TPU backend)."""
+    subprocess would initialize the accelerator backend)."""
     import pytest
 
     cv2 = pytest.importorskip("cv2")

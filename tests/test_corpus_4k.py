@@ -38,7 +38,7 @@ def load_4k(name):
 
 
 # Oracle regression on a subset (the full oracle sweep at 4K is minutes of
-# numpy; the TPU sweep below covers every sample against the same goldens).
+# numpy; the device sweep below covers every sample against the same goldens).
 ORACLE_4K = ["points.png", "difficult.png", "whiteout.png"]
 
 
@@ -64,7 +64,7 @@ def test_oracle_4k_matches_golden(name):
 
 
 def test_tpu_4k_full_corpus_matches_goldens():
-    """Every 4K sample through the TPU backend, one instance (the sparse
+    """Every 4K sample through the device backend, one instance (the sparse
     rung ladder adapts across the dense frames exactly as a session would).
     Dense masks may overflow the sparse budget — that must surface as the
     full-mask fallback (correct detections + a counted miss), never as

@@ -1,5 +1,5 @@
-"""Failure detection / recovery (SURVEY.md section 5): backend fallback,
-per-frame error isolation, loop pause/resume."""
+"""Failure detection / recovery (SURVEY.md section 5): device failures
+surface, per-frame error isolation, loop pause/resume."""
 
 import time
 
@@ -14,12 +14,13 @@ from smh_tpu.vision.pipeline import VisionLoop, VisionState
 
 
 def test_tpu_failure_falls_back_to_numpy(monkeypatch):
-    """A TPU-backend crash mid-frame logs, falls back to numpy, and keeps
-    producing results (hardware.rs:66-81 semantics)."""
+    """A device-backend crash mid-frame surfaces to the caller and the
+    device backend stays selected: no silent swap to the numpy oracle (the
+    live loop drops such a frame and logs it, see the test below)."""
     from smh_tpu.vision import tpu_backend
 
     def boom(self, grayscale):
-        raise RuntimeError("synthetic TPU failure")
+        raise RuntimeError("synthetic device failure")
 
     monkeypatch.setattr(tpu_backend.TpuBackend, "crop_to_map", boom)
 
@@ -28,14 +29,34 @@ def test_tpu_failure_falls_back_to_numpy(monkeypatch):
     state = VisionState(settings=settings, ocr_engine=FakeOcrEngine([]))
     frame = Frame(testing.make_frame(1280, 720, marker_lines=[((100, 100), (420, 300))]))
 
+    for _ in range(2):  # every frame: no flapping to another backend
+        with pytest.raises(RuntimeError, match="synthetic device failure"):
+            state.process(frame)
+        assert state.delegate.backend.name == "tpu"
+
+    # The user's hardware_acceleration toggle still selects the oracle.
+    settings.set("hardware_acceleration", False)
     res = state.process(frame)
     assert res is not None and len(res.markers) == 1
     assert state.delegate.backend.name == "numpy"
-
-    # Subsequent frames stay on numpy (no flapping back to the broken path).
-    res2 = state.process(frame)
-    assert res2 is not None and state.delegate.backend.name == "numpy"
     state.close()
+
+
+def test_device_backend_refuses_implicit_cpu():
+    """XLA:CPU runs the device backend only when jax_platforms names the
+    CPU explicitly; a host whose accelerator is missing fails loudly."""
+    import jax
+
+    from smh_tpu.vision.tpu_backend import TpuBackend
+
+    assert jax.devices()[0].platform == "cpu"
+    TpuBackend()  # conftest names "cpu" explicitly
+    jax.config.update("jax_platforms", "")
+    try:
+        with pytest.raises(RuntimeError, match="no accelerator"):
+            TpuBackend()
+    finally:
+        jax.config.update("jax_platforms", "cpu")
 
 
 def test_loop_pause_resume_and_error_isolation():

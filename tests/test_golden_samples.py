@@ -1,7 +1,7 @@
 """Golden tests over the reference's real sample corpus.
 
 The goldens (tests/goldens/detections.json) were produced by the numpy
-oracle; these tests pin the oracle (exact regression) and diff the TPU
+oracle; these tests pin the oracle (exact regression) and diff the device
 backend against it on real game screenshots — the automated cross-backend
 consistency test the reference lacked (SURVEY.md section 4).
 
@@ -97,7 +97,7 @@ def test_tpu_matches_golden_detections(name):
 
 @pytest.mark.slow
 def test_tpu_full_corpus_matches_goldens():
-    """EVERY pinned sample through the TPU backend (the CI twin of
+    """EVERY pinned sample through the device backend (the CI twin of
     tools/soak_corpus.py — round 3 only spot-checked 6 of the 26 in CI, so
     a regression could hide in the unselected samples). One backend
     instance across the corpus also exercises resolution switches, ladder

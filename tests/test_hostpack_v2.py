@@ -131,7 +131,7 @@ def test_scales_transport_adapts_inline_to_checksum_only():
     assert isinstance(be, TpuBackend)
     assert r1 is not None and r1.meters_to_px_ratio is not None
     # FakeOcrEngine is binary_ok: the OCR section travels as a bit mask.
-    assert be._dispatch_flags[6] == "binary"
+    assert be._dispatch_flags[5] == "binary"
     assert be.stats["scalespack_fetches"] == 0  # inline: no separate fetch
 
     # Same BRQ content (marker moved in the top-left of the map only):
@@ -140,7 +140,7 @@ def test_scales_transport_adapts_inline_to_checksum_only():
     for off in range(1, tb._INLINE_STABLE_AFTER + 2):
         r = state.process(Frame(small_lines_frame(off), 96))
         assert r is not None and r.meters_to_px_ratio == r1.meters_to_px_ratio
-    assert be._dispatch_flags[6] == "none"  # checksum-only transport now
+    assert be._dispatch_flags[5] == "none"  # checksum-only transport now
     assert be.stats["scalespack_fetches"] == 0  # still zero D2H for scales
 
     # Perturb the BRQ -> checksum changes -> one lazy scalespack fetch, and
@@ -152,7 +152,7 @@ def test_scales_transport_adapts_inline_to_checksum_only():
     assert r3 is not None and r3.meters_to_px_ratio == r1.meters_to_px_ratio
     assert be.stats["scalespack_fetches"] == 1
     state.process(Frame(small_lines_frame(2), 96))
-    assert be._dispatch_flags[6] == "binary"
+    assert be._dispatch_flags[5] == "binary"
     state.close()
 
 
@@ -178,30 +178,6 @@ def test_async_scales_publishes_markers_immediately_then_ratio():
         ratio = r.meters_to_px_ratio
     assert ratio == pytest.approx(300.0 / 118.0)
     state.close()
-
-
-def test_pallas_flag_routes_classify_through_kernel(monkeypatch):
-    from smh_tpu.ops import pallas_kernels as pk
-    from smh_tpu.ops import pipeline as ops_pipeline
-
-    calls = []
-    real = pk.classify_luma_pallas_planes
-
-    def spy(r8, g8, b8, interpret=False):
-        calls.append(interpret)
-        return real(r8, g8, b8, interpret=interpret)
-
-    monkeypatch.setattr(pk, "classify_luma_pallas_planes", spy)
-    monkeypatch.setenv("SMH_USE_PALLAS", "1")
-    assert ops_pipeline.pallas_mode() == "interpret"  # CPU test platform
-
-    frame = small_lines_frame()
-    lines_pallas = detect(TpuBackend(), frame)
-    assert calls, "SMH_USE_PALLAS=1 must route through classify_luma_pallas_planes"
-
-    monkeypatch.setenv("SMH_USE_PALLAS", "0")
-    lines_xla = detect(TpuBackend(), frame)
-    assert lines_tuples(lines_pallas) == lines_tuples(lines_xla)
 
 
 def test_rung_shrinks_after_streak():
@@ -302,7 +278,7 @@ def textful_frame(off=0, extra_text=()):
 
 
 def smhocr_state(device_scales: bool = False):
-    """A TPU-backed state with the real smhocr engine. The band-transport
+    """A device-backed state with the real smhocr engine. The band-transport
     tests below exercise the image path, so the on-device scales reader
     (which would supersede the band entirely) is disabled by default."""
     pytest.importorskip("scipy")
@@ -323,7 +299,7 @@ def test_scales_band_transport_exact_with_real_engine():
     assert r is not None
     assert r.meters_to_px_ratio == pytest.approx(300.0 / 118.0)
     # band transport was active and sufficient: no fallback fetch
-    assert be._dispatch_flags[7] is not None  # a band was packed
+    assert be._dispatch_flags[6] is not None  # a band was packed
     assert isinstance(be._host["scales_band"], tuple)
     assert be.stats["scales_band_misses"] == 0
     assert be.stats["scalespack_fetches"] == 0
@@ -333,7 +309,7 @@ def test_scales_band_transport_exact_with_real_engine():
     state2 = smhocr_state()
     state2.ocr_engine.image_derived = False
     r2 = state2.process(Frame(textful_frame(), 96))
-    assert state2.delegate.backend._dispatch_flags[7] is None  # no band
+    assert state2.delegate.backend._dispatch_flags[6] is None  # no band
     assert r2 is not None and r2.meters_to_px_ratio == r.meters_to_px_ratio
     state.close()
     state2.close()
@@ -382,7 +358,7 @@ def test_fake_engine_disables_band_transport():
     r = state.process(Frame(small_lines_frame(), 96))
     be = state.delegate.backend
     assert r is not None and r.meters_to_px_ratio is not None
-    assert be._dispatch_flags[7] is None  # no band: canned bboxes roam free
+    assert be._dispatch_flags[6] is None  # no band: canned bboxes roam free
     state.close()
 
 

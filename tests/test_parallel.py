@@ -74,7 +74,7 @@ def test_graft_entry_dryrun_from_dirty_jax_state():
     its own virtual CPU mesh in a subprocess and succeed regardless.
 
     Simulated here by initializing a 1-device CPU JAX in the caller before
-    the call (a real driver had the TPU platform; tests must not touch it)."""
+    the call (a real driver had an accelerator platform; tests must not touch it)."""
     import os
     import pathlib
     import subprocess

@@ -105,7 +105,7 @@ def test_junk_band_keeps_clean_band_trusted():
 
 
 def test_full_pipeline_device_transport():
-    """End to end through the TPU backend: the dispatch packs records, the
+    """End to end through the device backend: the dispatch packs records, the
     scales branch consumes them (no image fetch, no host OCR), and the ratio
     matches the known bar geometry."""
     from smh_tpu.settings import Settings
@@ -119,7 +119,7 @@ def test_full_pipeline_device_transport():
         res = state.process(Frame(render_text_frame(), 96))
         be = state.delegate.backend
         assert res is not None and res.meters_to_px_ratio == pytest.approx(300 / 118)
-        assert be._dispatch_flags[6] == "device"
+        assert be._dispatch_flags[5] == "device"
         assert be.stats["device_scales_frames"] == 1
         assert be.stats["device_scales_fallbacks"] == 0
         assert be.stats["scalespack_fetches"] == 0
@@ -149,7 +149,7 @@ def test_pipeline_falls_back_on_overflow():
         res = state.process(Frame(frame, 96))
         be = state.delegate.backend
         assert res is not None and res.meters_to_px_ratio == pytest.approx(300 / 118)
-        assert be._dispatch_flags[6] == "device"
+        assert be._dispatch_flags[5] == "device"
         assert be.stats["device_scales_fallbacks"] == 1
         assert be.stats["scalespack_fetches"] == 1
     finally:
@@ -182,62 +182,6 @@ def test_async_scales_consumes_device_records_inline():
         assert state._scales_future is None  # consumed inline, no worker
     finally:
         state.close()
-
-
-def test_minimap_rect_pallas_interpret_parity():
-    """The quiet-walk Pallas kernel (interpret mode) must equal the XLA
-    rect on arbitrary map content."""
-    from smh_tpu.ops import pallas_kernels as pk
-    from smh_tpu.ops import pipeline as opp
-
-    rng = np.random.default_rng(7)
-    # Explicit height schedule instead of 8 random draws: interpret mode
-    # emulates the kernel per-pixel in Python, so each trial costs seconds —
-    # these four cover the regression classes the random sweep was buying
-    # (single band; just over one band; mid multi-band at an odd offset;
-    # deep multi-band, where a min() in the packed-bits AND across bands
-    # mis-merged and passed small single-band cases — caught on real 4K
-    # hardware). Widths stay random but bounded (width never changed band
-    # arithmetic; it only scales the interpret cost linearly).
-    heights = [
-        int(0.7 * pk.QBAND_H),
-        pk.QBAND_H + 3,
-        int(2.4 * pk.QBAND_H) + 1,
-        4 * pk.QBAND_H - 5,
-    ]
-    for trial, h in enumerate(heights):
-        w = int(rng.integers(40, 220))
-        view = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-        if trial % 2:
-            # quiet box covering the centre but NOT the full candidate runs
-            y0, x0 = h // 4, w // 4
-            view[y0 : y0 + h // 2, x0 : x0 + w // 2] = 120 + trial
-        else:
-            y0, x0 = h // 8, w // 8
-            view[y0 : y0 + 3 * h // 4, x0 : x0 + 3 * w // 4] = 120 + trial
-        want = np.asarray(opp._minimap_rect(opp._edgy_quiet(jnp.asarray(view))))
-        got = np.asarray(pk.minimap_rect_pallas(jnp.asarray(view), interpret=True))
-        assert got.tolist() == want.tolist(), (trial, h, w)
-
-
-def test_minimap_rect_pallas_vmap_parity():
-    """vmap over the kernel (the batch pipeline's shape) must reroute to the
-    natively-batched launch and match per-sample results."""
-    import functools
-
-    from smh_tpu.ops import pallas_kernels as pk
-    from smh_tpu.ops import pipeline as opp
-
-    rng = np.random.default_rng(3)
-    views = rng.integers(0, 256, (3, 150, 200, 3), dtype=np.uint8)
-    views[0, 30:120, 40:160] = 90
-    views[1, 50:100, 60:140] = 91
-    batched = jax.vmap(functools.partial(pk.minimap_rect_pallas, interpret=True))(
-        jnp.asarray(views)
-    )
-    for i in range(3):
-        want = np.asarray(opp._minimap_rect(opp._edgy_quiet(jnp.asarray(views[i]))))
-        assert np.asarray(batched[i]).tolist() == want.tolist(), i
 
 
 @pytest.mark.skipif(not reference_samples_available(), reason="no reference samples")

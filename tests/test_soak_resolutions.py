@@ -1,5 +1,5 @@
 """Soak: every distinct sample resolution through the full driver on the
-TPU backend (CPU platform) — resize/re-bucket robustness."""
+device backend (CPU platform) — resize/re-bucket robustness."""
 
 import pytest
 

@@ -114,7 +114,7 @@ def test_sparse_detections_match_oracle_and_window():
     frame = two_lines_frame()
     be = TpuBackend()
     got = lines_tuples(detect(be, frame))
-    assert be._dispatch_flags[9] is not None  # sparse transport was active
+    assert be._dispatch_flags[7] is not None  # sparse transport was active
     assert be.stats["lsd_sparse_misses"] == 0
     assert len(got) == 2
 
@@ -124,7 +124,7 @@ def test_sparse_detections_match_oracle_and_window():
     try:
         be_win = TpuBackend()
         got_win = lines_tuples(detect(be_win, frame))
-        assert be_win._dispatch_flags[9] is None
+        assert be_win._dispatch_flags[7] is None
     finally:
         del os.environ["SMH_SPARSE"]
     assert got == got_win  # bit-identical across transports (same engine)

@@ -68,13 +68,12 @@ def test_real_lstm_reads_rendered_scale_text(monkeypatch):
     monochrome glyphs the game draws, expect a '300m' TEXTLINE with a sane
     bbox. Runs automatically on any host with tesseract-ocr-eng installed."""
     monkeypatch.delenv("SMH_TESS_LIB", raising=False)
-    from smh_tpu import testing
 
     # A BRQ-sized canvas with "300m" rendered at OCR-preprocess polarity
     # (dark text on light background reads best; the engine consumes the
     # already-thresholded gray image the device ships).
     img = np.full((200, 400), 255, dtype=np.uint8)
-    glyphs = testing.render_text_mask("300m", height=24)
+    glyphs = _render_text_mask("300m", height=24)
     gh, gw = glyphs.shape
     img[60 : 60 + gh, 40 : 40 + gw][glyphs > 0] = 0
 
@@ -84,3 +83,15 @@ def test_real_lstm_reads_rendered_scale_text(monkeypatch):
     assert any("300m" in t for t in texts), results
     hit = next(r for r in results if "300m" in r.text.replace(" ", ""))
     assert 0 <= hit.left < hit.right <= 400 and 0 <= hit.top < hit.bottom <= 200
+
+
+def _render_text_mask(text: str, height: int) -> np.ndarray:
+    """Tightly-cropped u8 0/255 glyph mask of `text` in DejaVu Sans."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    font = ImageFont.truetype("/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf", height)
+    img = Image.new("L", (height * len(text) + 8, height + 12), 0)
+    ImageDraw.Draw(img).text((2, 2), text, fill=255, font=font)
+    mask = (np.asarray(img) > 128).astype(np.uint8) * np.uint8(255)
+    ys, xs = np.nonzero(mask)
+    return mask[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]

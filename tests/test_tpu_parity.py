@@ -1,6 +1,6 @@
-"""Oracle-vs-TPU-backend parity: the automated cross-backend diff the
+"""Oracle-vs-device-backend parity: the automated cross-backend diff the
 reference never had (SURVEY.md section 4 lists it as the gap to close).
-Runs on the CPU platform in CI; the same code path runs on real TPU."""
+Runs on the CPU platform in CI; the same code path runs on the GPU (chip_smoke.py, tests/test_chip.py)."""
 
 import numpy as np
 import pytest

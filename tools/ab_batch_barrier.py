@@ -1,7 +1,8 @@
 """A/B a batch-path env knob in ONE process, interleaved.
 
-The relay's speed drifts on ~minutes timescales, so two separate probe
-processes cannot attribute a per-frame delta to a code change. This runs
+Host and device speed drift between processes (clocks, neighbours, power
+state), so two separate probe processes cannot attribute a per-frame delta
+to a code change. This runs
 measure_batched alternating an SMH_* knob A/B/A/B within one process
 (shared jit cache, same phase window) and prints per-round and pooled
 medians. Default knob: SMH_BATCH_BARRIER ''(lazy) vs 'eager'.
@@ -35,7 +36,7 @@ def main() -> None:
     batch = int(sys.argv[5]) if len(sys.argv) > 5 else 16
     out: dict = {f"a({a_val})_ms": [], f"b({b_val})_ms": []}
     for r in range(rounds):
-        # ABBA order: the relay phase drifts WITHIN a round too, so a
+        # ABBA order: speed drifts WITHIN a round too, so a
         # fixed A-then-B order biases A toward whichever phase each round
         # starts in; alternating cancels it to first order.
         pair = [(a_val, f"a({a_val})_ms"), (b_val, f"b({b_val})_ms")]

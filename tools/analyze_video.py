@@ -1,7 +1,7 @@
 """Offline gameplay-recording analysis: video -> per-frame detections JSONL.
 
 The batched counterpart of the live loop (VideoSource -> vision/batch.py):
-decodes a recording, runs B frames per TPU dispatch, and prints one JSON
+decodes a recording, runs B frames per device dispatch, and prints one JSON
 line per analyzed frame with markers / minimap / scale ratio. The
 throughput-mode answer to the reference's live-only design.
 
@@ -18,10 +18,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-from smh_tpu import jax_cache  # noqa: E402
-
-jax_cache.enable()  # the env var alone is dead on jax 0.9.0
 
 
 def main() -> int:

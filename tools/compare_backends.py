@@ -1,4 +1,4 @@
-"""A/B a frame through the numpy oracle and the TPU backend, diff everything.
+"""A/B a frame through the numpy oracle and the device backend, diff everything.
 
 The operational counterpart of the reference's live CPU/GPU toggle
 (src/vision/hardware.rs:14-45) — but as an automated diff instead of an

@@ -2,7 +2,7 @@
 reference sample corpus (read-only at /root/reference/vision-common/samples).
 
 The goldens pin the oracle's behaviour (regression protection) and serve as
-the target the TPU backend is diffed against. Regenerate with:
+the target the device backend is diffed against. Regenerate with:
 
     python tools/gen_goldens.py
 """

@@ -1,21 +1,18 @@
-# Full golden corpus through the TPU backend: crash soak + detection audit
-# vs goldens. Default platform: forced CPU (safe anywhere). Pass --tpu to
-# run on the real chip (exercises the windowed hostpack + Mosaic lowering on
-# hardware; first run compiles several resolution buckets).
+# Full golden corpus through the device backend: crash soak + detection
+# audit vs goldens. Default platform: forced CPU (safe anywhere). Pass
+# --device to run on the accelerator (first run compiles several resolution
+# buckets).
 import sys, json, pathlib, os
-sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parent.parent))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-from smh_tpu import jax_cache  # noqa: E402
-
-jax_cache.enable()  # the env var alone is dead on jax 0.9.0
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 import jax
-if "--tpu" not in sys.argv:
+if "--device" not in sys.argv:
     os.environ["JAX_PLATFORMS"] = "cpu"
     jax.config.update("jax_platforms", "cpu")
 from smh_tpu.squadex.capture import load_frame_bgra
 from smh_tpu.vision.tpu_backend import TpuBackend
 
-goldens = json.loads(pathlib.Path("/root/repo/tests/goldens/detections.json").read_text())
+goldens = json.loads((ROOT / "tests" / "goldens" / "detections.json").read_text())
 samples = pathlib.Path("/root/reference/vision-common/samples")
 bad = 0
 be = TpuBackend()
@@ -29,7 +26,7 @@ for name, g in sorted(goldens.items()):
         print(f"{name}: sleeping {status}")
         continue
     if c is None:
-        print(f"{name}: MISMATCH (tpu sleeping, golden not)"); bad += 1; continue
+        print(f"{name}: MISMATCH (device sleeping, golden not)"); bad += 1; continue
     lines = be.find_marker_lines(15)
     exp = g["lines"]
     ok = len(lines) == len(exp) and all(
